@@ -1,5 +1,6 @@
 """BASELINE config[1]: batched dense flow — 8 pipelined frame pairs at 720p,
-EPE parity vs cv2.calcOpticalFlowFarneback.
+EPE parity vs the numpy Farnebäck oracle (oracle/np_farneback.py, itself
+pinned to cv2.calcOpticalFlowFarneback by tests/test_farneback.py).
 
 Prints a JSON line with fps and the measured max EPE (budget: 0.1 px).
 """
@@ -17,16 +18,20 @@ import numpy as np
 
 
 def main() -> None:
-    import cv2
     import jax
 
-    from datmo_using_optical_flow_tpu.utils.compile_cache import enable as _ec
+    from datmo_using_optical_flow.utils.compile_cache import enable as _ec
     _ec()
+    from datmo_using_optical_flow.utils.device import (
+        card_name_and_power_limit, require_gpu)
+    print(f"device: {require_gpu()}; card: {card_name_and_power_limit()}",
+          file=sys.stderr, flush=True)
     import jax.numpy as jnp
 
     from bench import make_frames
-    from datmo_using_optical_flow_tpu.config import FarnebackConfig
-    from datmo_using_optical_flow_tpu.ops.farneback import _farneback_impl
+    from datmo_using_optical_flow.config import FarnebackConfig
+    from datmo_using_optical_flow.ops.farneback import _farneback_impl
+    from datmo_using_optical_flow.oracle.np_farneback import calc_flow
 
     h, w, batch = 720, 1280, 8
     cfg = FarnebackConfig()
@@ -36,15 +41,10 @@ def main() -> None:
 
     @jax.jit
     def batched(a, b):
-        # pipelined through the device queue as one program; NOT vmapped — batched
-        # gathers lower pathologically on this backend (measured 5x slower).
-        # Pallas fused path: since the warp adopted cv2's absolute-position
-        # weight arithmetic (floor(j+dx), not floor(dx)) and the fused blur the
-        # exact ascending-tap order, worst-case EPE on these scenes is 0.018 px
-        # (was 0.12 — amplified f32 grouping noise at attenuated border pixels)
+        # the pairs issued one after another inside one program
         fn = lambda x, y: _farneback_impl(x, y, cfg.pyr_scale, cfg.levels,
                                           cfg.winsize, cfg.iterations, cfg.poly_n,
-                                          cfg.poly_sigma, True, False)
+                                          cfg.poly_sigma, fast_warp=False)
         return jnp.stack([fn(a[i], b[i]) for i in range(a.shape[0])])
 
     t0 = time.time()
@@ -52,14 +52,13 @@ def main() -> None:
     flows.block_until_ready()
     epe_max = 0.0
     for i in range(batch):
-        ref = cv2.calcOpticalFlowFarneback(frames[i].astype(np.float32),
-                                           frames[i + 1].astype(np.float32), None,
-                                           cfg.pyr_scale, cfg.levels, cfg.winsize,
-                                           cfg.iterations, cfg.poly_n,
-                                           cfg.poly_sigma, 0)
+        ref = calc_flow(frames[i].astype(np.float32),
+                        frames[i + 1].astype(np.float32), cfg.pyr_scale,
+                        cfg.levels, cfg.winsize, cfg.iterations, cfg.poly_n,
+                        cfg.poly_sigma)
         epe = np.linalg.norm(np.asarray(flows[i]) - ref, axis=-1)
         epe_max = max(epe_max, float(epe.max()))
-    print(f"compile+run: {time.time() - t0:.1f}s; max EPE vs cv2: {epe_max:.5f}",
+    print(f"compile+run: {time.time() - t0:.1f}s; max EPE vs the oracle: {epe_max:.5f}",
           file=sys.stderr)
 
     reps = 3
@@ -79,5 +78,4 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    from datmo_using_optical_flow_tpu.utils.backend_probe import guard_main
-    guard_main(main, metric="batched_farneback_fps_720p_x8", unit="frames/s")
+    main()

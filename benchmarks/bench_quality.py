@@ -22,8 +22,7 @@ Reported per scene and pipeline: detection precision/recall (greedy 3 m gate
 per frame), matched-track velocity MAE vs ground truth, and — for pipeline A —
 artifact agreement vs the CPU oracle loop (cv2 Farnebäck + sklearn DBSCAN +
 numpy EKF replayed on the run's own saved BEVs; velocity grids toleranced,
-DBSCAN label partitions exact-compared).  Output: one JSON document
-(`BENCH_QUALITY_r05.json` when run by ``run_chip_suite.sh``).
+DBSCAN label partitions exact-compared).  Output: one JSON document.
 """
 
 from __future__ import annotations
@@ -57,7 +56,7 @@ def scenes():
       above threshold for the whole clip while continuously changing heading
       — itself an adversarial input for both constant-velocity trackers.
     """
-    from datmo_using_optical_flow_tpu.sim.synthetic import BoxTarget, SyntheticScene
+    from datmo_using_optical_flow.sim.synthetic import BoxTarget, SyntheticScene
 
     # R = 5 m circle about (0, -1): speed 0.65, inside every ROI, y <= 4
     circle = BoxTarget(center0=(5.0, -1.0, 0.75), velocity=(0.0, 0.65),
@@ -182,10 +181,10 @@ def eval_gmfa(scene, paths, dt_scene: float) -> dict:
     advances dt_scene per frame, so estimates scale by cfg.dt / dt_scene."""
     import jax
 
-    from datmo_using_optical_flow_tpu.config import (CapacityConfig, DbscanConfig,
+    from datmo_using_optical_flow.config import (CapacityConfig, DbscanConfig,
                                                      GMFAConfig, IcpConfig)
-    from datmo_using_optical_flow_tpu.models.gmfa import GMFAPipeline
-    from datmo_using_optical_flow_tpu.sim.synthetic import ground_truth
+    from datmo_using_optical_flow.models.gmfa import GMFAPipeline
+    from datmo_using_optical_flow.sim.synthetic import ground_truth
 
     cfg = GMFAConfig(
         dbscan=DbscanConfig(eps=1.0, min_samples=150),
@@ -231,12 +230,11 @@ def eval_gmfa(scene, paths, dt_scene: float) -> dict:
 def eval_pipeline_a(scene, paths, dt_scene: float, workdir: str) -> dict:
     """Pipeline A: per-pair EKF track yamls vs ground truth + CPU-oracle
     artifact agreement on the run's own BEVs (the test_scale_parity method)."""
-    import yaml
-
-    from datmo_using_optical_flow_tpu.config import CapacityConfig, PipelineAConfig
-    from datmo_using_optical_flow_tpu.models.optical_flow_datmo import PipelineA
-    from datmo_using_optical_flow_tpu.oracle import reference_a as ref
-    from datmo_using_optical_flow_tpu.sim.synthetic import ground_truth
+    from datmo_using_optical_flow.config import CapacityConfig, PipelineAConfig
+    from datmo_using_optical_flow.io.artifacts import load_tracks_yaml
+    from datmo_using_optical_flow.models.optical_flow_datmo import PipelineA
+    from datmo_using_optical_flow.oracle import reference_a as ref
+    from datmo_using_optical_flow.sim.synthetic import ground_truth
 
     # max_cells 16384: the clutter scenes exceed 4096 moving cells, and the
     # overflow truncation both hides real clusters and desyncs the DBSCAN
@@ -260,7 +258,7 @@ def eval_pipeline_a(scene, paths, dt_scene: float, workdir: str) -> dict:
     warmup = 3
     for pair in range(warmup, N_FRAMES - 1):
         p = os.path.join(out_dir, f"ekf_tracks_frame_{pair}.yaml")
-        tracks = yaml.safe_load(open(p)) if os.path.exists(p) else {}
+        tracks = load_tracks_yaml(open(p).read()) if os.path.exists(p) else {}
         det_pos, det_vel = [], []
         for _tid, st in (tracks or {}).items():
             # state [cx, cy] are BEV cell indices (row = x bin, col = y bin)
@@ -285,6 +283,12 @@ def eval_pipeline_a(scene, paths, dt_scene: float, workdir: str) -> dict:
     rep["pairs"] = summary["pairs"]
 
     # ---- oracle artifact agreement on the run's own BEVs ----
+    try:
+        import cv2  # noqa: F401
+        import sklearn  # noqa: F401
+    except ImportError:
+        rep["oracle_agreement"] = "not run: the oracle needs cv2 and sklearn"
+        return rep
     bevs = [np.load(os.path.join(out_dir, f"bev_frame_{i}.npy"))
             for i in range(N_FRAMES)]
     max_v = 0.0
@@ -322,7 +326,7 @@ def eval_pipeline_a(scene, paths, dt_scene: float, workdir: str) -> dict:
 
 
 def main() -> None:
-    from datmo_using_optical_flow_tpu.sim.synthetic import write_synthetic_sequence
+    from datmo_using_optical_flow.sim.synthetic import write_synthetic_sequence
 
     report: dict = {"n_frames": N_FRAMES, "gate_m": GATE_M, "scenes": {}}
     dt_scene = 1.0

@@ -24,12 +24,16 @@ def log(msg: str) -> None:
 def main() -> None:
     import jax
 
-    from datmo_using_optical_flow_tpu.utils.compile_cache import enable as _ec
+    from datmo_using_optical_flow.utils.compile_cache import enable as _ec
     _ec()
+    from datmo_using_optical_flow.utils.device import (
+        card_name_and_power_limit, require_gpu)
+    print(f"device: {require_gpu()}; card: {card_name_and_power_limit()}",
+          file=sys.stderr, flush=True)
     import jax.numpy as jnp
 
-    from datmo_using_optical_flow_tpu.config import CapacityConfig, PipelineAConfig
-    from datmo_using_optical_flow_tpu.models.optical_flow_datmo import PipelineA
+    from datmo_using_optical_flow.config import CapacityConfig, PipelineAConfig
+    from datmo_using_optical_flow.models.optical_flow_datmo import PipelineA
 
     log(f"devices: {jax.devices()}")
     h, w = 2176, 3840
@@ -46,7 +50,7 @@ def main() -> None:
     frames = make_frames(n_frames, h, w, seed=1, n_objects=8)
     bevs = jnp.asarray(frames)
 
-    pipe = PipelineA(cfg, fast_warp=True, use_pallas=True)
+    pipe = PipelineA(cfg, fast_warp=True)
     carry = pipe.init_carry()
     carry_bytes = sum(int(np.prod(x.shape)) * x.dtype.itemsize
                       for x in jax.tree.leaves(pipe.init_stream_carry()))
@@ -81,5 +85,4 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    from datmo_using_optical_flow_tpu.utils.backend_probe import guard_main
-    guard_main(main, metric="datmo_4k_dispatch_fps", unit="frames/s")
+    main()

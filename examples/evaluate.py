@@ -10,7 +10,7 @@ Usage: python examples/evaluate.py [num_frames]
 NOTE: this is the quick well-separated sanity scene (P/R saturate near 1.0 by
 design).  The ADVERSARIAL quality surface — crossing targets with clutter,
 occlusion shadows, curving targets, noise/density sweeps, where P/R genuinely
-degrade — is ``benchmarks/bench_quality.py`` (results: BENCH_QUALITY_r05.json).
+degrade — is ``benchmarks/bench_quality.py``.
 """
 
 from __future__ import annotations
@@ -26,14 +26,14 @@ import numpy as np
 
 
 def main(argv: list[str]) -> int:
-    from datmo_using_optical_flow_tpu.config import (CapacityConfig, DbscanConfig,
+    from datmo_using_optical_flow.config import (CapacityConfig, DbscanConfig,
                                                      GMFAConfig, IcpConfig,
                                                      PipelineAConfig)
-    from datmo_using_optical_flow_tpu.models.gmfa import GMFAPipeline
-    from datmo_using_optical_flow_tpu.models.optical_flow_datmo import PipelineA
-    from datmo_using_optical_flow_tpu.sim.synthetic import (BoxTarget, SyntheticScene,
+    from datmo_using_optical_flow.models.gmfa import GMFAPipeline
+    from datmo_using_optical_flow.models.optical_flow_datmo import PipelineA
+    from datmo_using_optical_flow.sim.synthetic import (BoxTarget, SyntheticScene,
                                                             write_synthetic_sequence)
-    from datmo_using_optical_flow_tpu.utils.metrics import (detection_pr,
+    from datmo_using_optical_flow.utils.metrics import (detection_pr,
                                                             velocity_accuracy)
 
     n_frames = int(argv[0]) if argv else 6

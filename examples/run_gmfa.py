@@ -15,9 +15,9 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from datmo_using_optical_flow_tpu.config import GMFAConfig, load_config
-from datmo_using_optical_flow_tpu.io.frames import natsort_key
-from datmo_using_optical_flow_tpu.models.gmfa import GMFAPipeline
+from datmo_using_optical_flow.config import GMFAConfig, load_config
+from datmo_using_optical_flow.io.frames import natsort_key
+from datmo_using_optical_flow.models.gmfa import GMFAPipeline
 
 
 def main(argv: list[str]) -> int:
@@ -26,8 +26,8 @@ def main(argv: list[str]) -> int:
         return 2
     out = argv[1] if len(argv) > 1 else "track_data.xlsx"
     if argv[0] == "--synthetic":
-        from datmo_using_optical_flow_tpu.config import CapacityConfig, DbscanConfig
-        from datmo_using_optical_flow_tpu.sim.synthetic import (
+        from datmo_using_optical_flow.config import CapacityConfig, DbscanConfig
+        from datmo_using_optical_flow.sim.synthetic import (
             BoxTarget, SyntheticScene, write_synthetic_sequence)
 
         scene = SyntheticScene(seed=5, targets=(BoxTarget(center0=(5.0, -3.0, 0.75),

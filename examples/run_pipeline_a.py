@@ -16,9 +16,9 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from datmo_using_optical_flow_tpu.config import PipelineAConfig, load_config
-from datmo_using_optical_flow_tpu.io.frames import natsort_key
-from datmo_using_optical_flow_tpu.models.optical_flow_datmo import PipelineA
+from datmo_using_optical_flow.config import PipelineAConfig, load_config
+from datmo_using_optical_flow.io.frames import natsort_key
+from datmo_using_optical_flow.models.optical_flow_datmo import PipelineA
 
 
 def main(argv: list[str]) -> int:
@@ -27,7 +27,7 @@ def main(argv: list[str]) -> int:
         return 2
     out = argv[1] if len(argv) > 1 else None
     if argv[0] == "--synthetic":
-        from datmo_using_optical_flow_tpu.sim.synthetic import (
+        from datmo_using_optical_flow.sim.synthetic import (
             SyntheticScene, write_synthetic_sequence)
 
         pcd_files = write_synthetic_sequence(SyntheticScene(seed=3), "/tmp/datmo_demo_seq", 5)

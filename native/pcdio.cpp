@@ -1,10 +1,10 @@
-// Native PCD decoder for datmo_using_optical_flow_tpu.
+// Native PCD decoder for datmo_using_optical_flow.
 //
 // The reference delegates point-cloud I/O to Open3D's C++ readers
 // (Optical_flow/main.py:60, GMFA/GMFA.py:32). This is the equivalent native
 // component for this framework: a dependency-free PCD 0.7 decoder (ascii and
 // binary encodings) exposed over a C ABI consumed via ctypes
-// (datmo_using_optical_flow_tpu/io/pcd.py). binary_compressed falls back to
+// (datmo_using_optical_flow/io/pcd.py). binary_compressed falls back to
 // the Python implementation (returns -1).
 //
 // API:

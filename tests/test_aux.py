@@ -8,14 +8,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from datmo_using_optical_flow_tpu.ops.clusters import (cluster_mean_speeds,
+from datmo_using_optical_flow.ops.clusters import (cluster_mean_speeds,
                                                        filter_clusters_by_polygon)
-from datmo_using_optical_flow_tpu.utils.checkpoint import (load_checkpoint,
+from datmo_using_optical_flow.utils.checkpoint import (load_checkpoint,
                                                            save_checkpoint)
-from datmo_using_optical_flow_tpu.utils.metrics import (FpsCounter, MetricsLog,
+from datmo_using_optical_flow.utils.metrics import (FpsCounter, MetricsLog,
                                                         detection_pr, flow_epe,
                                                         velocity_accuracy)
-from datmo_using_optical_flow_tpu.utils.profiling import StageTimer
+from datmo_using_optical_flow.utils.profiling import StageTimer
 
 
 def test_flow_epe():
@@ -58,8 +58,8 @@ def test_metrics_log(tmp_path):
 
 
 def test_checkpoint_roundtrip_npz(tmp_path):
-    from datmo_using_optical_flow_tpu.config import CapacityConfig, PipelineAConfig
-    from datmo_using_optical_flow_tpu.models.optical_flow_datmo import PipelineA
+    from datmo_using_optical_flow.config import CapacityConfig, PipelineAConfig
+    from datmo_using_optical_flow.models.optical_flow_datmo import PipelineA
 
     cfg = PipelineAConfig(capacities=CapacityConfig(max_raw_points=512,
                                                     max_roi_points=128,
@@ -114,7 +114,7 @@ def test_filter_clusters_by_polygon():
 
 
 def test_viz_saves_files(tmp_path):
-    from datmo_using_optical_flow_tpu.io import viz
+    from datmo_using_optical_flow.io import viz
 
     tracks = {1: np.array([1.0, 2.0, 0.5, 0.1])}
     viz.visualize_tracks(tracks, save_path=str(tmp_path / "t.png"))
@@ -140,7 +140,7 @@ def test_viz_saves_files(tmp_path):
 
 
 def test_carla_compute_control():
-    from datmo_using_optical_flow_tpu.sim.carla_harness import compute_control
+    from datmo_using_optical_flow.sim.carla_harness import compute_control
 
     # stop band
     throttle, steer, brake = compute_control({"x": 0, "y": 0, "yaw": 0},
@@ -157,7 +157,7 @@ def test_carla_compute_control():
 
 
 def test_carla_lidar_decode():
-    from datmo_using_optical_flow_tpu.sim.carla_harness import lidar_to_xyz
+    from datmo_using_optical_flow.sim.carla_harness import lidar_to_xyz
 
     raw = np.arange(12, dtype=np.float32).tobytes()
     out = lidar_to_xyz(raw)
@@ -167,7 +167,7 @@ def test_carla_lidar_decode():
 def test_carla_requires_import_error():
     import pytest
 
-    from datmo_using_optical_flow_tpu.sim.carla_harness import run_simulation
+    from datmo_using_optical_flow.sim.carla_harness import run_simulation
 
     with pytest.raises(ImportError, match="CARLA"):
         run_simulation()
@@ -178,7 +178,7 @@ def test_carla_requires_import_error():
 def test_turn_rate_circle_consistency():
     """turn_rate targets: analytic velocity == finite difference of centers;
     speed constant; path stays within the circle radius of the chord."""
-    from datmo_using_optical_flow_tpu.sim.synthetic import (BoxTarget,
+    from datmo_using_optical_flow.sim.synthetic import (BoxTarget,
                                                             target_center,
                                                             target_velocity)
 
@@ -205,7 +205,7 @@ def test_spawn_despawn_and_stream_stability():
     """Targets outside their spawn window contribute no points, and their
     presence/absence does not perturb any other part of the frame (the rng
     stream draws are unconditional)."""
-    from datmo_using_optical_flow_tpu.sim.synthetic import (BoxTarget,
+    from datmo_using_optical_flow.sim.synthetic import (BoxTarget,
                                                             SyntheticScene,
                                                             ground_truth,
                                                             synthetic_frame)
@@ -227,7 +227,7 @@ def test_spawn_despawn_and_stream_stability():
 
 
 def test_clutter_and_occlusion():
-    from datmo_using_optical_flow_tpu.sim.synthetic import (BoxTarget,
+    from datmo_using_optical_flow.sim.synthetic import (BoxTarget,
                                                             SyntheticScene,
                                                             synthetic_frame)
 
@@ -266,8 +266,8 @@ def test_disk_frame_source_q16():
     the same points within half an LSB."""
     import tempfile
 
-    from datmo_using_optical_flow_tpu.io.frames import DiskFrameSource, Q16_SCALE
-    from datmo_using_optical_flow_tpu.io.pcd import write_pcd
+    from datmo_using_optical_flow.io.frames import DiskFrameSource, Q16_SCALE
+    from datmo_using_optical_flow.io.pcd import write_pcd
 
     rng = np.random.default_rng(2)
     pts = rng.uniform(-15, 15, size=(300, 3)).astype(np.float32)

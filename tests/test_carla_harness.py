@@ -246,8 +246,8 @@ def fake_carla(monkeypatch):
 
 
 def test_run_simulation_capture_loop(fake_carla, tmp_path):
-    from datmo_using_optical_flow_tpu.io.pcd import read_pcd
-    from datmo_using_optical_flow_tpu.sim.carla_harness import run_simulation
+    from datmo_using_optical_flow.io.pcd import read_pcd
+    from datmo_using_optical_flow.sim.carla_harness import run_simulation
 
     out = tmp_path / "capture"
     run_simulation(host="fakehost", port=2099, town="Town02",
@@ -323,7 +323,7 @@ def test_run_simulation_capture_loop(fake_carla, tmp_path):
 def test_run_simulation_requires_carla(tmp_path, monkeypatch):
     """Without the fake module the harness degrades to a clear ImportError."""
     monkeypatch.setitem(sys.modules, "carla", None)  # force import failure
-    from datmo_using_optical_flow_tpu.sim.carla_harness import run_simulation
+    from datmo_using_optical_flow.sim.carla_harness import run_simulation
 
     with pytest.raises((ImportError, TypeError)):
         run_simulation(output_dir=str(tmp_path / "x"), num_ticks=1)
@@ -335,7 +335,7 @@ def test_bootstrap_carla_egg(tmp_path, monkeypatch):
     return None without touching the path."""
     import sys
 
-    from datmo_using_optical_flow_tpu.sim.carla_harness import bootstrap_carla_egg
+    from datmo_using_optical_flow.sim.carla_harness import bootstrap_carla_egg
 
     assert bootstrap_carla_egg(str(tmp_path)) is None
     plat = "win-amd64" if os.name == "nt" else "linux-x86_64"

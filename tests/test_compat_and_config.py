@@ -4,7 +4,7 @@ import numpy as np
 import pytest
 import yaml
 
-from datmo_using_optical_flow_tpu.config import (GMFAConfig, PipelineAConfig,
+from datmo_using_optical_flow.config import (GMFAConfig, PipelineAConfig,
                                                  gmfa_config_from_dict, load_config,
                                                  pipeline_a_config_from_dict)
 
@@ -77,8 +77,8 @@ def test_config_validation_rejects_bad_values():
 # ------------------------------------------------------------------ compat layer
 
 def test_compat_functions_match_oracle():
-    from datmo_using_optical_flow_tpu import compat
-    from datmo_using_optical_flow_tpu.oracle import reference_a as ref
+    from datmo_using_optical_flow import compat
+    from datmo_using_optical_flow.oracle import reference_a as ref
 
     rng = np.random.default_rng(0)
     pts = rng.uniform(-15, 15, size=(2000, 3))
@@ -99,7 +99,7 @@ def test_compat_functions_match_oracle():
 def test_compat_flow_and_clustering():
     import cv2
 
-    from datmo_using_optical_flow_tpu import compat
+    from datmo_using_optical_flow import compat
 
     rng = np.random.default_rng(1)
     bev1 = cv2.GaussianBlur(rng.uniform(0, 255, (48, 48)).astype(np.float32), (0, 0), 2)
@@ -114,7 +114,7 @@ def test_compat_flow_and_clustering():
 
 
 def test_compat_tracking_api():
-    from datmo_using_optical_flow_tpu import compat
+    from datmo_using_optical_flow import compat
 
     tracks = {}
     clusters = {0: {"centroid": np.array([1.0, 2.0]),
@@ -130,7 +130,7 @@ def test_compat_tracking_api():
 
 
 def test_cli_synth_and_run(tmp_path, capsys):
-    from datmo_using_optical_flow_tpu.__main__ import main
+    from datmo_using_optical_flow.__main__ import main
 
     out_dir = str(tmp_path / "seq")
     assert main(["synth", out_dir, "-n", "3"]) == 0

@@ -6,8 +6,8 @@ import numpy as np
 import pytest
 from sklearn.cluster import DBSCAN
 
-from datmo_using_optical_flow_tpu.ops.dbscan import dbscan, dbscan_velocity_grid
-from datmo_using_optical_flow_tpu.oracle import reference_a as ref
+from datmo_using_optical_flow.ops.dbscan import dbscan, dbscan_velocity_grid
+from datmo_using_optical_flow.oracle import reference_a as ref
 
 
 def _partition_equal(a, b):

@@ -6,10 +6,10 @@ import numpy as np
 import pytest
 from scipy.optimize import linear_sum_assignment as scipy_lsa
 
-from datmo_using_optical_flow_tpu.ops.dbscan import dbscan
-from datmo_using_optical_flow_tpu.ops.hungarian import solve_square
-from datmo_using_optical_flow_tpu.ops.icp import registration_icp
-from datmo_using_optical_flow_tpu.ops.ransac import segment_plane
+from datmo_using_optical_flow.ops.dbscan import dbscan
+from datmo_using_optical_flow.ops.hungarian import solve_square
+from datmo_using_optical_flow.ops.icp import registration_icp
+from datmo_using_optical_flow.ops.ransac import segment_plane
 
 
 def test_hungarian_large_matches_scipy():
@@ -76,9 +76,9 @@ def test_dbscan_single_point():
 
 
 def test_compat_process_multiple_frames(tmp_path):
-    from datmo_using_optical_flow_tpu import compat
-    from datmo_using_optical_flow_tpu.config import CapacityConfig, PipelineAConfig
-    from datmo_using_optical_flow_tpu.sim.synthetic import (SyntheticScene,
+    from datmo_using_optical_flow import compat
+    from datmo_using_optical_flow.config import CapacityConfig, PipelineAConfig
+    from datmo_using_optical_flow.sim.synthetic import (SyntheticScene,
                                                             write_synthetic_sequence)
 
     paths = write_synthetic_sequence(SyntheticScene(seed=2), str(tmp_path / "s"), 3)
@@ -96,10 +96,10 @@ def test_compat_process_multiple_frames(tmp_path):
 def test_gmfa_plot_dir(tmp_path):
     import os
 
-    from datmo_using_optical_flow_tpu.config import (CapacityConfig, DbscanConfig,
+    from datmo_using_optical_flow.config import (CapacityConfig, DbscanConfig,
                                                      GMFAConfig, IcpConfig)
-    from datmo_using_optical_flow_tpu.models.gmfa import GMFAPipeline
-    from datmo_using_optical_flow_tpu.sim.synthetic import (BoxTarget, SyntheticScene,
+    from datmo_using_optical_flow.models.gmfa import GMFAPipeline
+    from datmo_using_optical_flow.sim.synthetic import (BoxTarget, SyntheticScene,
                                                             write_synthetic_sequence)
 
     cfg = GMFAConfig(dbscan=DbscanConfig(eps=1.0, min_samples=30),

@@ -7,9 +7,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from datmo_using_optical_flow_tpu.config import FarnebackConfig
-from datmo_using_optical_flow_tpu.ops import farneback as fb
-from datmo_using_optical_flow_tpu.oracle import np_farneback as npf
+from datmo_using_optical_flow.config import FarnebackConfig
+from datmo_using_optical_flow.ops import farneback as fb
+from datmo_using_optical_flow.oracle import np_farneback as npf
 
 
 @pytest.fixture(scope="module")
@@ -145,3 +145,98 @@ def test_flow_initial_flow_requires_flow0(pair):
     cfg = FarnebackConfig(flags=cv2.OPTFLOW_USE_INITIAL_FLOW)
     with pytest.raises(ValueError, match="flow0"):
         fb.farneback_flow(jnp.asarray(img1), jnp.asarray(img2), cfg)
+
+
+def test_flow_matches_cv2_subpixel_shift():
+    """Small level on the shipping fast_warp path (packed int16 corners)."""
+    rng = np.random.default_rng(0)
+    img1 = cv2.GaussianBlur(rng.uniform(0, 255, (64, 80)).astype(np.float32), (0, 0), 3)
+    img2 = cv2.warpAffine(img1, np.float32([[1, 0, 1.3], [0, 1, -0.8]]), (80, 64))
+    ours = fb.farneback_flow(jnp.asarray(img1), jnp.asarray(img2), FarnebackConfig(),
+                             fast_warp=True)
+    theirs = cv2.calcOpticalFlowFarneback(img1, img2, None, 0.3, 5, 15, 5, 5, 5, 0)
+    assert _epe(ours, theirs).max() < 0.02, _epe(ours, theirs).max()
+
+
+def test_flow_160x320_matches_cv2():
+    """Full pyramid with two levels above the coarsest vs cv2."""
+    rng = np.random.default_rng(5)
+    img1 = cv2.GaussianBlur(rng.uniform(0, 255, (160, 320)).astype(np.float32),
+                            (0, 0), 3)
+    img2 = cv2.warpAffine(img1, np.float32([[1, 0, 2.3], [0, 1, -1.4]]), (320, 160))
+    ours = fb.farneback_flow(jnp.asarray(img1), jnp.asarray(img2), FarnebackConfig())
+    theirs = cv2.calcOpticalFlowFarneback(img1, img2, None, 0.3, 5, 15, 5, 5, 5, 0)
+    assert _epe(ours, theirs).max() < 0.02, _epe(ours, theirs).max()
+
+
+def test_flow_worst_case_epe_pinned():
+    """Regression pin for the headline-workload EPE budget: the bench.py
+    textured moving scene through the full pyramid, worst-case EPE held well
+    under the 0.1 px budget (reduced size; the 1080p pin is
+    test_flow_1080p_epe_budget_shipping_config)."""
+    from bench import make_frames
+
+    frames = make_frames(2, 192, 512, seed=5, n_objects=3)
+    img1 = frames[0].astype(np.float32)
+    img2 = frames[1].astype(np.float32)
+    ours = fb.farneback_flow(jnp.asarray(img1), jnp.asarray(img2), FarnebackConfig())
+    theirs = cv2.calcOpticalFlowFarneback(img1, img2, None, 0.3, 5, 15, 5, 5, 5, 0)
+    epe = _epe(ours, theirs)
+    assert epe.max() < 0.05, epe.max()
+    assert np.percentile(epe, 99) < 1e-3, np.percentile(epe, 99)
+
+
+def test_flow_gaussian_flag_matches_cv2():
+    """cv2 flags=256 at the reference pyramid parameters."""
+    rng = np.random.default_rng(6)
+    img1 = cv2.GaussianBlur(rng.uniform(0, 255, (64, 80)).astype(np.float32),
+                            (0, 0), 3)
+    img2 = cv2.warpAffine(img1, np.float32([[1, 0, 1.1], [0, 1, 0.6]]), (80, 64))
+    ours = fb.farneback_flow(jnp.asarray(img1), jnp.asarray(img2),
+                             FarnebackConfig(flags=256))
+    theirs = cv2.calcOpticalFlowFarneback(img1, img2, None, 0.3, 5, 15, 5, 5, 5, 256)
+    assert _epe(ours, theirs).max() < 0.02, _epe(ours, theirs).max()
+
+
+def test_resize_bilinear_transposed_columns_bit_exact():
+    """The transpose-based column pass is the same arithmetic as the direct
+    minor-axis take; pin bit-equality on a batched and an odd shape."""
+    rng = np.random.default_rng(8)
+    for shp, (oh, ow) in (((2, 324, 576), (1080, 1920)), ((5, 33), (12, 10))):
+        img = jnp.asarray(rng.normal(size=shp).astype(np.float32))
+        out = fb.resize_bilinear(img, oh, ow)
+        h, w = shp[-2], shp[-1]
+        sy, sx = h / oh, w / ow
+        fy = (np.arange(oh) + 0.5) * sy - 0.5
+        fx = (np.arange(ow) + 0.5) * sx - 0.5
+        y0 = np.clip(np.floor(fy).astype(np.int32), 0, max(h - 2, 0))
+        x0 = np.clip(np.floor(fx).astype(np.int32), 0, max(w - 2, 0))
+        wy = np.clip(fy - y0, 0, 1).astype(np.float32)
+        wx = np.clip(fx - x0, 0, 1).astype(np.float32)
+        y1 = np.minimum(y0 + 1, h - 1)
+        x1 = np.minimum(x0 + 1, w - 1)
+        v = jnp.take(img, y0, axis=-2) * (1 - wy[:, None]) \
+            + jnp.take(img, y1, axis=-2) * wy[:, None]
+        ref = jnp.take(v, x0, axis=-1) * (1 - wx) \
+            + jnp.take(v, x1, axis=-1) * wx
+        assert float(jnp.max(jnp.abs(out - ref))) == 0.0
+
+
+def test_flow_1080p_epe_budget_shipping_config():
+    """The <= 0.1 px worst-case EPE budget vs cv2 at the FULL 1080p headline
+    shape on the shipping configuration (fast_warp=True — bench.py's
+    stream-step flow path), on the bench.py textured scene family.
+
+    Runtime: minutes on the CPU — full-suite tier, not smoke.
+    """
+    from bench import make_frames
+
+    frames = make_frames(2, 1080, 1920, seed=0, n_objects=6)
+    img1 = frames[0].astype(np.float32)
+    img2 = frames[1].astype(np.float32)
+    ours = fb.farneback_flow(jnp.asarray(img1), jnp.asarray(img2), FarnebackConfig(),
+                             fast_warp=True)
+    theirs = cv2.calcOpticalFlowFarneback(img1, img2, None, 0.3, 5, 15, 5, 5, 5, 0)
+    epe = _epe(ours, theirs)
+    assert epe.max() <= 0.1, f"1080p worst-case EPE {epe.max()} busts the budget"
+    assert np.percentile(epe, 99) < 1e-3, np.percentile(epe, 99)

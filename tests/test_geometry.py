@@ -6,11 +6,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from datmo_using_optical_flow_tpu.io.frames import pad_points
-from datmo_using_optical_flow_tpu.ops import bev as bev_ops
-from datmo_using_optical_flow_tpu.ops import points as point_ops
-from datmo_using_optical_flow_tpu.oracle import reference_a as ref
-from datmo_using_optical_flow_tpu.utils.padding import compact_masked
+from datmo_using_optical_flow.io.frames import pad_points
+from datmo_using_optical_flow.ops import bev as bev_ops
+from datmo_using_optical_flow.ops import points as point_ops
+from datmo_using_optical_flow.oracle import reference_a as ref
+from datmo_using_optical_flow.utils.padding import compact_masked
 
 
 @pytest.fixture
@@ -58,10 +58,10 @@ def test_compact_masked_overflow():
 
 def test_compact_masked_topk_path_matches_scatter():
     """Above _SCATTER_MAX rows compaction switches to top_k+gather (the 1080p
-    velocity grid's 2M-cell scatter cost 9.6 ms/frame on TPU); both paths must
+    velocity grid's 2M cells); both paths must
     produce bit-identical rows, order, mask, and count — including underflow,
     overflow, and empty masks."""
-    from datmo_using_optical_flow_tpu.utils import padding
+    from datmo_using_optical_flow.utils import padding
 
     rng = np.random.default_rng(0)
     # +37: not a multiple of the bitpacked rank search's 256-bit block; the
@@ -101,7 +101,7 @@ def test_densify_matches_oracle_with_shared_noise(cloud):
 
 
 def test_bev_grid_shape_matches_arange():
-    from datmo_using_optical_flow_tpu.config import PipelineAConfig
+    from datmo_using_optical_flow.config import PipelineAConfig
 
     cfg = PipelineAConfig()
     nx = len(np.arange(cfg.x_range[0], cfg.x_range[1], cfg.grid_resolution[0]))

@@ -9,11 +9,11 @@ import pytest
 from scipy.optimize import linear_sum_assignment as scipy_lsa
 from scipy.spatial import cKDTree
 
-from datmo_using_optical_flow_tpu.ops.hungarian import linear_sum_assignment, solve_square
-from datmo_using_optical_flow_tpu.ops.icp import registration_icp, transform_points
-from datmo_using_optical_flow_tpu.ops.nn import nearest_neighbors
-from datmo_using_optical_flow_tpu.ops.som import update_som
-from datmo_using_optical_flow_tpu.oracle import reference_b as refb
+from datmo_using_optical_flow.ops.hungarian import linear_sum_assignment, solve_square
+from datmo_using_optical_flow.ops.icp import registration_icp, transform_points
+from datmo_using_optical_flow.ops.nn import nearest_neighbors
+from datmo_using_optical_flow.ops.som import update_som
+from datmo_using_optical_flow.oracle import reference_b as refb
 
 
 # ------------------------------------------------------------------ 1-NN
@@ -41,7 +41,7 @@ def test_nearest_neighbors_empty_target():
 
 def test_nearest_neighbors_scan_path_matches_pallas():
     """The large-target XLA fallback == the Pallas kernel (incl. tie order)."""
-    from datmo_using_optical_flow_tpu.ops.nn import nearest_neighbors_scan
+    from datmo_using_optical_flow.ops.nn import nearest_neighbors_scan
 
     rng = np.random.default_rng(3)
     src = rng.normal(size=(300, 3)).astype(np.float32)
@@ -61,7 +61,7 @@ def test_nearest_neighbors_scan_path_matches_pallas():
 def test_nearest_neighbors_active_matches_full():
     """Active-subset 1-NN (the cached-ICP hot path) == the full query on active
     rows, idx=0/+inf on inactive ones — including compaction round-trip."""
-    from datmo_using_optical_flow_tpu.ops.nn import nearest_neighbors_active
+    from datmo_using_optical_flow.ops.nn import nearest_neighbors_active
 
     rng = np.random.default_rng(7)
     src = rng.normal(size=(500, 3)).astype(np.float32)
@@ -82,8 +82,7 @@ def test_nearest_neighbors_active_matches_full():
         np.testing.assert_array_equal(ia[active], i0[active])
         # winner coords are the indexed target rows, exactly
         np.testing.assert_array_equal(ca[active], tgt[ia[active]])
-        # on-device both paths run the same Mosaic binary per row (bit-equal);
-        # CPU interpret mode re-fuses the kernel body into each surrounding
+        # interpret mode re-fuses the kernel body into each surrounding
         # graph, which can reassociate f32 math by ~1 ulp
         np.testing.assert_allclose(da[active], d0[active], rtol=3e-5, atol=1e-7)
         assert (la[active] <= da[active] + 1e-7).all()  # bound is sound
@@ -98,7 +97,7 @@ def test_nearest_neighbors_active_cap_matches_uncapped():
     """active_cap (capped-prefix kernel + lax.cond fallback) is bit-identical
     to the uncapped call on active rows — both when the active count fits the
     cap (small branch) and when it overflows (full-width fallback)."""
-    from datmo_using_optical_flow_tpu.ops.nn import nearest_neighbors_active
+    from datmo_using_optical_flow.ops.nn import nearest_neighbors_active
 
     rng = np.random.default_rng(11)
     src = rng.normal(size=(500, 3)).astype(np.float32)
@@ -216,9 +215,9 @@ def test_icp_cached_matches_uncached():
             got = registration_icp(jnp.asarray(src), jnp.asarray(m),
                                    jnp.asarray(dst), jnp.asarray(m),
                                    threshold=thr, cached=True, sweep=sweep)
-            # bit-identical on device (same Mosaic kernel per re-queried row;
-            # the exclusion bound is conservative); CPU interpret mode admits
-            # ~ulp refusion drift, so compare at tight float tolerance
+            # the exclusion bound is conservative, so the trajectories agree;
+            # the cached and uncached paths are different programs (kernel vs
+            # XLA sweep), so compare at tight float tolerance
             np.testing.assert_allclose(np.asarray(ref.transformation),
                                        np.asarray(got.transformation),
                                        rtol=1e-5, atol=1e-6)
@@ -309,8 +308,8 @@ def test_nearest_neighbors_active_inplace_matches_full():
     """The no-compaction subset query (per-block skipping in Morton order)
     matches the full sweep on active rows, idx=0/+inf on inactive ones, and
     tolerates invalid 1e9-coord rows inside mixed blocks."""
-    from datmo_using_optical_flow_tpu.ops import nn_pallas
-    from datmo_using_optical_flow_tpu.ops.nn import nearest_neighbors_active_inplace
+    from datmo_using_optical_flow.ops import nn_pallas
+    from datmo_using_optical_flow.ops.nn import nearest_neighbors_active_inplace
 
     rng = np.random.default_rng(29)
     n = 1024
@@ -350,10 +349,10 @@ def test_nearest_neighbors_active_inplace_matches_full():
 
 
 def test_block_first_fill_first_active_representative():
-    """The block fill's representative must be a KEPT row: the kernel recenters
-    on row 0, and a sentinel/garbage representative costs f32 precision on
-    every active row of a mixed block (advisor r3, medium)."""
-    from datmo_using_optical_flow_tpu.ops import nn_pallas
+    """The block fill's representative must be a KEPT row: a sentinel/garbage
+    representative would inflate the block's bounding box and defeat the
+    tile pruning."""
+    from datmo_using_optical_flow.ops import nn_pallas
 
     b = nn_pallas._SRC_BLOCK
     rng = np.random.default_rng(7)
@@ -376,7 +375,7 @@ def test_icp_cached_midcloud_padding_matches_uncached():
     """Invalid rows with mid-range coords (zeros inside the cloud's bounding
     box) would sort MID-CLOUD under an unmasked Morton key and land as block
     representatives; registration_icp's internal order must mask them to the
-    end (advisor r3, medium).  The cached path must still match the exact
+    end.  The cached path must still match the exact
     full-requery path at GMFA's tight gate."""
     rng = np.random.default_rng(17)
     cloud = rng.uniform(-10, 10, size=(3000, 3)).astype(np.float32)
@@ -408,7 +407,7 @@ def test_capped_sweep_dichotomy():
     """Capped-search contract of the NN kernel (VERDICT r2 item 3): every row
     either matches the uncapped sweep exactly (when its true NN d2 < cap2) or
     certifies d2 >= cap2; the lower bound stays sound and <= the returned d2."""
-    from datmo_using_optical_flow_tpu.ops import nn_pallas
+    from datmo_using_optical_flow.ops import nn_pallas
 
     rng = np.random.default_rng(13)
     src = rng.uniform(-20, 20, size=(2000, 3)).astype(np.float32)

@@ -7,11 +7,11 @@ import numpy as np
 import pytest
 from sklearn.cluster import DBSCAN
 
-from datmo_using_optical_flow_tpu.config import (CapacityConfig, DbscanConfig,
+from datmo_using_optical_flow.config import (CapacityConfig, DbscanConfig,
                                                  GMFAConfig, IcpConfig)
-from datmo_using_optical_flow_tpu.models.gmfa import GMFAPipeline
-from datmo_using_optical_flow_tpu.oracle import reference_b as refb
-from datmo_using_optical_flow_tpu.sim.synthetic import (BoxTarget, SyntheticScene,
+from datmo_using_optical_flow.models.gmfa import GMFAPipeline
+from datmo_using_optical_flow.oracle import reference_b as refb
+from datmo_using_optical_flow.sim.synthetic import (BoxTarget, SyntheticScene,
                                                         synthetic_frame)
 
 
@@ -28,7 +28,7 @@ def cfg():
 @pytest.fixture(scope="module")
 def clouds(cfg):
     """Expanded clouds for 3 consecutive frames through the device preprocessor."""
-    from datmo_using_optical_flow_tpu.io.frames import pad_points
+    from datmo_using_optical_flow.io.frames import pad_points
 
     scene = SyntheticScene(seed=21, targets=(BoxTarget(center0=(5.0, -3.0, 0.75),
                                                        velocity=(2.0, 1.0)),))
@@ -140,7 +140,7 @@ def test_gmfa_matches_oracle(cfg, clouds):
 
 
 def test_gmfa_process_files(cfg, tmp_path):
-    from datmo_using_optical_flow_tpu.sim.synthetic import write_synthetic_sequence
+    from datmo_using_optical_flow.sim.synthetic import write_synthetic_sequence
 
     scene = SyntheticScene(seed=21, targets=(BoxTarget(center0=(5.0, -3.0, 0.75),
                                                        velocity=(2.0, 1.0)),))
@@ -193,10 +193,10 @@ def test_gmfa_scan_steps_matches_sequential(cfg, clouds):
 def test_gmfa_seed_carry_order(cfg, clouds):
     """seed_carry installs the cloud's Morton order (r4: a bare
     ``_replace(prev_points=...)`` left the arange placeholder, collapsing the
-    NN kernel's spatial pruning — ~13x on the first frame at reference load),
+    NN kernel's spatial pruning on the first frame),
     and the step's RESULTS stay order-independent (only pruning tightness
     may change)."""
-    from datmo_using_optical_flow_tpu.ops import nn_pallas
+    from datmo_using_optical_flow.ops.nn import sort_order
 
     pipe, frames = clouds
     p0, m0 = (jnp.asarray(x) for x in frames[0])
@@ -204,7 +204,7 @@ def test_gmfa_seed_carry_order(cfg, clouds):
 
     seeded = pipe.seed_carry(p0, m0)
     np.testing.assert_array_equal(np.asarray(seeded.prev_order),
-                                  np.asarray(nn_pallas.sort_order(p0, m0)))
+                                  np.asarray(sort_order(p0, m0)))
 
     key = jax.random.PRNGKey(5)
     bare = pipe.init_carry()._replace(prev_points=p0, prev_mask=m0)
@@ -221,7 +221,7 @@ def test_gmfa_seed_carry_order(cfg, clouds):
 def test_gmfa_two_targets_matches_oracle(cfg):
     """Two moving boxes: multi-cluster Hungarian association, births, and track
     states must match the oracle across frames."""
-    from datmo_using_optical_flow_tpu.io.frames import pad_points
+    from datmo_using_optical_flow.io.frames import pad_points
 
     scene = SyntheticScene(seed=33, targets=(
         BoxTarget(center0=(5.0, -4.0, 0.75), velocity=(1.5, 0.8)),

@@ -4,8 +4,8 @@ reference call sites ``Optical_flow/main.py:60``, ``GMFA/GMFA.py:32``)."""
 import numpy as np
 import pytest
 
-from datmo_using_optical_flow_tpu.io.pcd import read_pcd, write_pcd, _lzf_decompress
-from datmo_using_optical_flow_tpu.io.frames import DiskFrameSource, pad_points, natsort_key
+from datmo_using_optical_flow.io.pcd import read_pcd, write_pcd, _lzf_decompress
+from datmo_using_optical_flow.io.frames import DiskFrameSource, pad_points, natsort_key
 
 
 @pytest.fixture
@@ -102,10 +102,10 @@ def test_q16_h2d_quantization_roundtrip_and_preprocess_parity():
     import jax
     import jax.numpy as jnp
 
-    from datmo_using_optical_flow_tpu.config import CapacityConfig, PipelineAConfig
-    from datmo_using_optical_flow_tpu.io.frames import (Q16_SCALE, pad_points,
+    from datmo_using_optical_flow.config import CapacityConfig, PipelineAConfig
+    from datmo_using_optical_flow.io.frames import (Q16_SCALE, pad_points,
                                                         pad_points_q16)
-    from datmo_using_optical_flow_tpu.models.optical_flow_datmo import PipelineA
+    from datmo_using_optical_flow.models.optical_flow_datmo import PipelineA
 
     rng = np.random.default_rng(4)
     pts = rng.uniform(-20, 20, size=(500, 3))

@@ -5,8 +5,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from datmo_using_optical_flow_tpu.ops import masks as mops
-from datmo_using_optical_flow_tpu.oracle import reference_a as ref
+from datmo_using_optical_flow.ops import masks as mops
+from datmo_using_optical_flow.oracle import reference_a as ref
 
 
 @pytest.fixture

@@ -25,9 +25,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from datmo_using_optical_flow_tpu.io.pcd import read_pcd
-from datmo_using_optical_flow_tpu.ops.icp import registration_icp, transform_points
-from datmo_using_optical_flow_tpu.ops.ransac import remove_ground, segment_plane
+from datmo_using_optical_flow.io.pcd import read_pcd
+from datmo_using_optical_flow.ops.icp import registration_icp, transform_points
+from datmo_using_optical_flow.ops.ransac import remove_ground, segment_plane
 
 
 # ------------------------------------------------------------------ PCD goldens

@@ -8,13 +8,13 @@ import pytest
 from jax.sharding import Mesh, PartitionSpec as P
 from jax import shard_map
 
-from datmo_using_optical_flow_tpu.config import CapacityConfig, PipelineAConfig
-from datmo_using_optical_flow_tpu.models.optical_flow_datmo import PipelineA
-from datmo_using_optical_flow_tpu.parallel.halo import (halo_exchange_rows,
+from datmo_using_optical_flow.config import CapacityConfig, PipelineAConfig
+from datmo_using_optical_flow.models.optical_flow_datmo import PipelineA
+from datmo_using_optical_flow.parallel.halo import (halo_exchange_rows,
                                                         sharded_box_blur5,
                                                         sharded_sep_filter)
-from datmo_using_optical_flow_tpu.parallel.mesh import stream_mesh
-from datmo_using_optical_flow_tpu.parallel.streams import (init_stream_carry,
+from datmo_using_optical_flow.parallel.mesh import stream_mesh
+from datmo_using_optical_flow.parallel.streams import (init_stream_carry,
                                                            make_multi_stream_step)
 
 pytestmark = pytest.mark.skipif(len(jax.devices()) < 8,
@@ -45,7 +45,7 @@ def test_halo_exchange_rows_matches_gather():
 
 
 def test_sharded_sep_filter_matches_unsharded():
-    from datmo_using_optical_flow_tpu.ops.farneback import sep_filter
+    from datmo_using_optical_flow.ops.farneback import sep_filter
 
     rng = np.random.default_rng(0)
     img = rng.normal(size=(64, 40)).astype(np.float32)
@@ -60,7 +60,7 @@ def test_sharded_sep_filter_matches_unsharded():
 
 
 def test_sharded_box_blur_matches_unsharded():
-    from datmo_using_optical_flow_tpu.ops.farneback import box_blur5
+    from datmo_using_optical_flow.ops.farneback import box_blur5
 
     rng = np.random.default_rng(1)
     m = rng.normal(size=(5, 64, 40)).astype(np.float32)
@@ -93,9 +93,9 @@ def _gmfa_stream_clouds(n: int, p: int = 1024):
 def test_multi_stream_gmfa_step_matches_single_stream():
     """8 stream-parallel GMFA steps == 8 independent single-stream steps
     (VERDICT r2 missing #1: pipeline B's multi-chip form)."""
-    from datmo_using_optical_flow_tpu.config import DbscanConfig, GMFAConfig
-    from datmo_using_optical_flow_tpu.models.gmfa import GMFAPipeline, _gmfa_step_impl
-    from datmo_using_optical_flow_tpu.parallel.streams import (
+    from datmo_using_optical_flow.config import DbscanConfig, GMFAConfig
+    from datmo_using_optical_flow.models.gmfa import GMFAPipeline, _gmfa_step_impl
+    from datmo_using_optical_flow.parallel.streams import (
         init_gmfa_stream_carry, make_multi_stream_gmfa_step)
 
     n, p, max_moving = 8, 1024, 512

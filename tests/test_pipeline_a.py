@@ -9,10 +9,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from datmo_using_optical_flow_tpu.config import CapacityConfig, PipelineAConfig
-from datmo_using_optical_flow_tpu.models.optical_flow_datmo import PipelineA
-from datmo_using_optical_flow_tpu.oracle import reference_a as ref
-from datmo_using_optical_flow_tpu.sim.synthetic import SyntheticScene, write_synthetic_sequence
+from datmo_using_optical_flow.config import CapacityConfig, PipelineAConfig
+from datmo_using_optical_flow.models.optical_flow_datmo import PipelineA
+from datmo_using_optical_flow.oracle import reference_a as ref
+from datmo_using_optical_flow.sim.synthetic import SyntheticScene, write_synthetic_sequence
 
 
 @pytest.fixture(scope="module")
@@ -25,8 +25,8 @@ def cfg():
 @pytest.fixture(scope="module")
 def bev_seq(cfg):
     """Deterministic BEV sequence from synthetic PCDs through the device preprocessor."""
-    from datmo_using_optical_flow_tpu.io.frames import pad_points
-    from datmo_using_optical_flow_tpu.io.pcd import read_pcd
+    from datmo_using_optical_flow.io.frames import pad_points
+    from datmo_using_optical_flow.io.pcd import read_pcd
 
     paths = write_synthetic_sequence(SyntheticScene(seed=9), "/tmp/test_pipea_seq", 4)
     pipe = PipelineA(cfg, fast_warp=False)
@@ -158,7 +158,7 @@ def test_process_files_writer_failure_raises(cfg, tmp_path, monkeypatch):
     draining its queues, and the main loop re-raises."""
     import pytest
 
-    from datmo_using_optical_flow_tpu.io.artifacts import ArtifactSink
+    from datmo_using_optical_flow.io.artifacts import ArtifactSink
 
     def boom(self, *a, **k):
         raise OSError("disk full (synthetic)")

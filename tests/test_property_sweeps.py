@@ -7,8 +7,8 @@ import pytest
 from scipy.optimize import linear_sum_assignment as scipy_lsa
 from sklearn.cluster import DBSCAN
 
-from datmo_using_optical_flow_tpu.ops.dbscan import dbscan
-from datmo_using_optical_flow_tpu.ops.hungarian import linear_sum_assignment
+from datmo_using_optical_flow.ops.dbscan import dbscan
+from datmo_using_optical_flow.ops.hungarian import linear_sum_assignment
 
 
 @pytest.mark.parametrize("seed", range(20))

@@ -6,9 +6,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from datmo_using_optical_flow_tpu.io.frames import pad_points
-from datmo_using_optical_flow_tpu.ops.ransac import remove_ground, segment_plane
-from datmo_using_optical_flow_tpu.sim.synthetic import SyntheticScene, synthetic_frame
+from datmo_using_optical_flow.io.frames import pad_points
+from datmo_using_optical_flow.ops.ransac import remove_ground, segment_plane
+from datmo_using_optical_flow.sim.synthetic import SyntheticScene, synthetic_frame
 
 
 def test_segment_plane_recovers_ground():

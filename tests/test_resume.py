@@ -6,12 +6,12 @@ import os
 import jax
 import numpy as np
 
-from datmo_using_optical_flow_tpu.config import (CapacityConfig, DbscanConfig,
+from datmo_using_optical_flow.config import (CapacityConfig, DbscanConfig,
                                                  GMFAConfig, IcpConfig,
                                                  PipelineAConfig)
-from datmo_using_optical_flow_tpu.models.gmfa import GMFAPipeline
-from datmo_using_optical_flow_tpu.models.optical_flow_datmo import PipelineA
-from datmo_using_optical_flow_tpu.sim.synthetic import (BoxTarget, SyntheticScene,
+from datmo_using_optical_flow.models.gmfa import GMFAPipeline
+from datmo_using_optical_flow.models.optical_flow_datmo import PipelineA
+from datmo_using_optical_flow.sim.synthetic import (BoxTarget, SyntheticScene,
                                                         write_synthetic_sequence)
 
 
@@ -86,7 +86,7 @@ def test_checkpoint_legacy_and_missing_leaf(tmp_path):
     """Old archives load into newer carries: positional leaf_<i> keys (the
     pre-path-keyed format) still resolve, and a leaf the snapshot predates
     (GmfaCarry.prev_order) falls back to the template's value."""
-    from datmo_using_optical_flow_tpu.utils.checkpoint import (load_checkpoint,
+    from datmo_using_optical_flow.utils.checkpoint import (load_checkpoint,
                                                                save_checkpoint)
 
     cfg = GMFAConfig(capacities=CapacityConfig(

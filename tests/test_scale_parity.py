@@ -20,10 +20,10 @@ import numpy as np
 import pytest
 import yaml
 
-from datmo_using_optical_flow_tpu.config import CapacityConfig, PipelineAConfig
-from datmo_using_optical_flow_tpu.models.optical_flow_datmo import PipelineA
-from datmo_using_optical_flow_tpu.oracle import reference_a as ref
-from datmo_using_optical_flow_tpu.sim.synthetic import (BoxTarget, SyntheticScene,
+from datmo_using_optical_flow.config import CapacityConfig, PipelineAConfig
+from datmo_using_optical_flow.models.optical_flow_datmo import PipelineA
+from datmo_using_optical_flow.oracle import reference_a as ref
+from datmo_using_optical_flow.sim.synthetic import (BoxTarget, SyntheticScene,
                                                         write_synthetic_sequence)
 
 N_FRAMES = 11  # >= 10 frame pairs

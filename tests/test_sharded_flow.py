@@ -9,8 +9,8 @@ import pytest
 from jax import shard_map
 from jax.sharding import Mesh, PartitionSpec as P
 
-from datmo_using_optical_flow_tpu.ops import farneback as fb
-from datmo_using_optical_flow_tpu.parallel.sharded_flow import (sharded_farneback_level,
+from datmo_using_optical_flow.ops import farneback as fb
+from datmo_using_optical_flow.parallel.sharded_flow import (sharded_farneback_level,
                                                                 sharded_poly_exp)
 
 pytestmark = pytest.mark.skipif(len(jax.devices()) < 8,
@@ -60,8 +60,8 @@ def test_sharded_level_matches_unsharded(pair):
 def test_sharded_full_flow_matches_unsharded():
     """Full pyramid: coarse levels replicated, level 0 row-sharded — matches the
     unsharded flow (small displacement within the warp halo)."""
-    from datmo_using_optical_flow_tpu.parallel.sharded_flow import sharded_farneback_flow
-    from datmo_using_optical_flow_tpu.config import FarnebackConfig
+    from datmo_using_optical_flow.parallel.sharded_flow import sharded_farneback_flow
+    from datmo_using_optical_flow.config import FarnebackConfig
 
     rng = np.random.default_rng(3)
     img1 = cv2.GaussianBlur(rng.uniform(0, 255, (64, 80)).astype(np.float32), (0, 0), 3)

@@ -6,8 +6,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from datmo_using_optical_flow_tpu.config import CapacityConfig, PipelineAConfig
-from datmo_using_optical_flow_tpu.models.optical_flow_datmo import PipelineA
+from datmo_using_optical_flow.config import CapacityConfig, PipelineAConfig
+from datmo_using_optical_flow.models.optical_flow_datmo import PipelineA
 
 
 def _cfg():
@@ -77,10 +77,10 @@ def test_empty_roi_preprocess_yields_zero_bev():
 def test_corrupt_pcd_mid_sequence_is_skipped(tmp_path):
     """A corrupt PCD file mid-stream becomes an empty frame -> skipped pair;
     the stream continues (reference's blanket per-pair except, main.py:635-637)."""
-    from datmo_using_optical_flow_tpu.sim.synthetic import (SyntheticScene,
+    from datmo_using_optical_flow.sim.synthetic import (SyntheticScene,
                                                             write_synthetic_sequence)
 
-    from datmo_using_optical_flow_tpu.sim.synthetic import BoxTarget
+    from datmo_using_optical_flow.sim.synthetic import BoxTarget
 
     cfg = _cfg()
     # a scene small enough for the test capacities (max_raw_points=1024)

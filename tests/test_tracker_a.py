@@ -4,8 +4,8 @@ EKF :437-467, track_clusters :468-506, manage_tracks :507-515, lifetimes :622-63
 import jax.numpy as jnp
 import numpy as np
 
-from datmo_using_optical_flow_tpu.models import tracker_a as ta
-from datmo_using_optical_flow_tpu.oracle import reference_a as ref
+from datmo_using_optical_flow.models import tracker_a as ta
+from datmo_using_optical_flow.oracle import reference_a as ref
 
 CAP_T, CAP_K = 16, 8
 DT, Q, R, GAMMA = 1.0, 0.1, 0.05, 0.5
